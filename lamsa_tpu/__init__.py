@@ -1,17 +1,18 @@
-"""lamsa_tpu — a TPU-native long-read split aligner.
+"""lamsa_tpu — an accelerator-native long-read split aligner (JAX, run
+on NVIDIA GPUs; the CPU engine is the reference and test engine).
 
 A from-scratch reimplementation of the capabilities of yangao07/LAMSA
-(Liu & Gao et al., Bioinformatics 2017) designed TPU-first:
+(Liu & Gao et al., Bioinformatics 2017), designed for batched device
+execution:
 
   * approximate-match seeding against an on-device k-mer/pigeonhole index
     (replacing the reference's external GEM mapper subprocess,
     SURVEY.md section 2 L3),
   * sparse-DP seed chaining into split-alignment skeletons with SV-event
     classification (reference: split_mapping.c-style chainer, SURVEY.md L4),
-  * banded affine-gap Smith-Waterman gap filling as Pallas kernels —
-    an antidiagonal-wavefront engine for global gap fills plus a
-    rolling-row engine for extensions, sharing one bit-exact contract
-    (reference: klib ksw.c SSE2 kernel, SURVEY.md L5 / section 3.4),
+  * banded affine-gap Smith-Waterman gap filling as a batched XLA row
+    scan with the traceback walked on the device (reference: klib
+    ksw.c SSE2 kernel, SURVEY.md L5 / section 3.4),
   * SAM output with split records linked by SA:Z tags (SURVEY.md L6).
 
 Host-level parallelism is data parallelism over reads across a

@@ -49,7 +49,7 @@ class AlignConfig:
 
     # --- seeding ---
     # The reference matched ~50 bp seeds allowing ~3 edits via GEM
-    # (SURVEY.md section 1 stage 1). The TPU-native equivalent is the
+    # (SURVEY.md section 1 stage 1). The device-native equivalent is the
     # pigeonhole bound taken to its density limit: exact `kmer`-length
     # pieces (50 // (3+1) ~= 13) sampled every `seed_step` bp, with
     # chaining playing the role of per-seed verification — a true locus
@@ -66,7 +66,7 @@ class AlignConfig:
     # Adaptive densification: reads whose best chain scores fewer than
     # this many anchors' worth are re-seeded on a half-step grid (the
     # >22%-error tail regime; 0 disables). See pipeline/aln.py
-    # _seed_and_chain and the BASELINE.md round-4 error sweep.
+    # _seed_and_chain and the error sweep in tests/test_e2e.py.
     adaptive_seed_min_anchors: int = 4
     # On the FM backend the adaptive re-seed also searches every
     # piece's 1-edit variants (ops/fm.py backward_search_1edit — the
@@ -136,8 +136,7 @@ def preset(name: str) -> AlignConfig:
         # (tools/ont_preset_sweep.py, sub-heavy profiles, CPU engine):
         # at 28% total error part_recall is 0.945 at step 6 vs 0.836 at
         # step 10; 1.000 vs 0.984 at 20%. Softening mismatch to 2
-        # changed nothing, so scoring stays shared with pacbio
-        # (BASELINE.md round-4 ont-preset table).
+        # changed nothing, so scoring stays shared with pacbio.
         return base.replace(
             scores=ScoreParams(match=1, mismatch=3, gap_open=2, gap_ext=1),
             kmer=13, seed_step=6)

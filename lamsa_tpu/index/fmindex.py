@@ -1,11 +1,12 @@
 """FM-index: BWT + sampled Occ + sampled SA (host build, device search).
 
 The whole-genome replacement for the sorted k-mer index: GRCh38-scale
-position tables (~13 GB) exceed HBM, while the FM-index fits in ~2.3 GB
+position tables (~13 GB) crowd device memory, while the FM-index fits
+in ~2.3 GB
 (SURVEY.md section 7 step 2a — "FM-index backward search on-device ...
 partition each seed into exact pieces (pigeonhole), exact-match each
 piece with FM backward search — pure gathers"). The reference shipped
-GEM, an FM-index mapper, as an opaque binary; this is the TPU-native
+GEM, an FM-index mapper, as an opaque binary; this is the on-device
 equivalent with the classic BWA-style layout:
 
   * bwt2:    uint32[ceil(n/16)]   2-bit packed $-less BWT (base b of

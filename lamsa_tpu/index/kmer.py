@@ -1,16 +1,16 @@
-"""Sorted k-mer index: TPU-native replacement for the GEM mapper.
+"""Sorted k-mer index: on-device replacement for the GEM mapper.
 
 The reference shells out to the external GEM FM-index binary for
 approximate seed matching (SURVEY.md section 2 L3 — "the one process
 boundary in the program"). We cannot and should not reproduce a binary;
-the TPU-native equivalent (SURVEY.md section 7 step 2) matches seeds by
+the on-device equivalent (SURVEY.md section 7 step 2) matches seeds by
 the pigeonhole principle: a ~50 bp seed with <= e edits contains an
 exact piece of length k = seed_len // (e+1); exact pieces are matched
 against this index with pure gathers + vectorized binary search, and
 false candidates are eliminated by sparse-DP chaining (ops/chain.py)
 and banded-DP verification — both on device.
 
-Layout (all flat arrays, HBM-resident at align time):
+Layout (all flat arrays, device-resident at align time):
   keys:      uint32[U]  sorted unique k-mer codes (2 bits/base, k <= 16)
   starts:    int32[U]   offset of each key's positions in `positions`
   counts:    int32[U]   number of positions (capped at max_hits_per_kmer

@@ -2,12 +2,12 @@
 
 The reference tool keeps a 2-bit packed genome plus name/offset tables in
 BWA-lineage ``.pac/.ann/.amb`` files (SURVEY.md section 2b "Ref packing",
-section 3.1). We keep the same capability TPU-first:
+section 3.1). We keep the same capability, laid out for the device:
 
   * on disk: 2-bit packed bases (``ref.2bit.npy``) + ambiguity (N) run
     list + JSON name/offset table, all inside a ``<ref>.lti/`` directory
     written by ``lamsa index`` (SURVEY.md section 3.1);
-  * in memory / HBM: the concatenated forward genome as one ``uint8``
+  * in memory / on device: the concatenated forward genome as one ``uint8``
     nt4-code array — gather-friendly for seeding and for streaming target
     windows into the banded-DP kernel. N bases are stored as code 4 on
     the host but randomized-to-A in the 2-bit pack (standard bntseq

@@ -1,11 +1,11 @@
 // lamsa_tpu native host components.
 //
-// TPU-native counterparts of the reference's C core (SURVEY.md §2b):
+// Host-side counterparts of the reference's C core (SURVEY.md §2b):
 //   * lamsa_banded_sw_cpu  — scalar banded affine-gap SW with traceback
 //       (the ksw.c-equivalent; serves as the measurable CPU baseline and
 //       a fast exact oracle for differential tests)
 //   * lamsa_decode_steps   — batch decoder of the on-device traceback
-//       kernel's per-row step words -> CIGAR runs (hot host loop)
+//       walk's per-row step words -> CIGAR runs (hot host loop)
 //   * lamsa_traceback_banded — CIGAR walk over banded direction bytes
 //       (CPU-engine path)
 //   * lamsa_encode_nt4 / lamsa_revcomp4 — byte-level sequence encoding

@@ -1,14 +1,12 @@
 """Batched banded affine-gap Smith-Waterman — XLA reference implementation.
 
-This is the TPU-native redesign of the reference's ``ksw.c`` SSE2 kernel
+This is the batched redesign of the reference's ``ksw.c`` SSE2 kernel
 (SURVEY.md section 3.4): instead of per-call SIMD over one
 query/target pair, we batch B gap instances and sweep DP rows with the
 whole band (W lanes) and the whole batch as vector dimensions, so every
-step is a dense (B, W) VPU op. The Pallas kernel
-(``banded_sw_pallas.py``) implements the same math with explicit
-VMEM residency; this module is the jit-able XLA version used on CPU, in
-tests, and as the semantic spec. Both are property-tested bit-identical
-to ``ops/oracle.py``.
+step is a dense (B, W) array op. It is the one DP implementation on
+both engines (CPU and GPU) and is property-tested bit-identical to
+``ops/oracle.py``.
 
 Band layout ("rolling diagonal"): lane d of row i holds DP cell
 (i, j) with j = i + band_lo + d, d in [0, W). Consequences:
@@ -22,7 +20,8 @@ value came from E never beats extending that same gap (classic affine
 argument); see ops/oracle.py for the shared tie-breaking contract.
 
 Direction bytes match ops/oracle.py bit-for-bit and are traced back on
-the host (ops/traceback.py / native C++).
+the host (ops/traceback.py / native C++) or, on the GPU, on the device
+(ops/traceback_device.py).
 """
 
 from __future__ import annotations
@@ -41,6 +40,19 @@ T_SENTINEL = 5  # target padding code; never matches (like N)
 def banded_sw_batch(q, t_win, m_len, n_len, lo, zdrop=None, *, match,
                     mismatch, gapo, gape, with_dirs=True):
     """Run banded affine DP on a batch of instances.
+    Same as banded_sw_rows, with dirs in per-instance (B, M, W) order
+    for the host traceback."""
+    res = banded_sw_rows(q, t_win, m_len, n_len, lo, zdrop, match=match,
+                         mismatch=mismatch, gapo=gapo, gape=gape,
+                         with_dirs=with_dirs)
+    if with_dirs:
+        res["dirs"] = jnp.transpose(res["dirs"], (1, 0, 2))
+    return res
+
+
+def banded_sw_rows(q, t_win, m_len, n_len, lo, zdrop=None, *, match,
+                   mismatch, gapo, gape, with_dirs=True):
+    """Banded affine DP over rows (traced inside the caller's jit).
 
     Args:
       q:     int32[B, M]    query nt4 codes, padded arbitrarily.
@@ -58,9 +70,9 @@ def banded_sw_batch(q, t_win, m_len, n_len, lo, zdrop=None, *, match,
       scores: match/mismatch/gapo/gape as python ints (static).
 
     Returns dict of:
-      dirs:   uint8[B, M, W]  direction bytes for rows 1..M (row i at
-              index i-1); all-zero rows beyond m_len. Omitted when
-              with_dirs=False.
+      dirs:   uint8[M, B, W]  direction bytes for rows 1..M (row i at
+              index i-1) in the order the row scan emits them; all-zero
+              rows beyond m_len. Omitted when with_dirs=False.
       h_last: int32[B, W]     H row at i == m_len (global score row;
               stays NEG_INF if the instance z-dropped before row m).
       best:   int32[B, 3]     (score, i, d) of max-H cell over live rows
@@ -158,8 +170,8 @@ def banded_sw_batch(q, t_win, m_len, n_len, lo, zdrop=None, *, match,
             improve[:, None],
             jnp.stack([row_max, jnp.full_like(row_arg, i), row_arg], axis=1),
             best)
-        # group-boundary zdrop check (after this row's best update,
-        # mirroring the Pallas kernel's end-of-store-group check)
+        # group-boundary zdrop check (after this row's best update;
+        # ops/oracle.py ZDROP_GROUP contract)
         alive = alive & ~((i % ZDROP_GROUP == 0) & (zd > 0)
                           & (row_max < best[:, 0] - zd))
 
@@ -171,7 +183,7 @@ def banded_sw_batch(q, t_win, m_len, n_len, lo, zdrop=None, *, match,
 
     result = {"h_last": h_last, "best": best}
     if with_dirs:
-        result["dirs"] = jnp.transpose(dirs, (1, 0, 2))  # (B, M, W)
+        result["dirs"] = dirs                      # (M, B, W)
     return result
 
 

@@ -3,7 +3,7 @@
 The reference's chainer builds a DAG over seed hits and runs sparse DP
 with a bounded predecessor scan (SURVEY.md sections 2b "Sparse-DP
 chainer" and 3.3 "HOT LOOP #2": "for each hit, best predecessor under
-co-linearity + gap penalty, O(n * lookback)"). TPU-native version: hits
+co-linearity + gap penalty, O(n * lookback)"). Device version: hits
 arrive sorted by (strand, qpos, rpos) (pipeline/seeding.py), and the
 predecessor scan is a ``lax.scan`` over hit index with a static lookback
 window, each step a dense (B, LOOKBACK) vector op over the whole batch.

@@ -1,14 +1,13 @@
 """On-device FM-index operations: batched backward search + SA resolve.
 
 Device mirror of index/fmindex.py host queries, built entirely from
-gathers, popcounts and fixed-trip loops (XLA/TPU-friendly — the same
+gathers, popcounts and fixed-trip loops (XLA-friendly — the same
 "pure gathers" design SURVEY.md section 7 step 2a prescribes). All row
 arithmetic is uint32 (rows < 2^32; no x64 mode).
 
-GATHER BATCHING (round-4): generic gathers on this TPU are
-descriptor-bound (~130 M elem/s regardless of element width,
-BASELINE.md microbench), so the layout packs everything one rank step
-touches into ONE gathered record:
+GATHER BATCHING: a rank step is a chain of dependent random reads, so
+the layout packs everything one rank step touches into ONE gathered
+record:
 
   * blk  uint32[ncp, 8]  — per 64-base BWT block: 4 Occ checkpoint
     words + the 4 packed BWT words. rank(c, i) is one row gather plus

@@ -2,12 +2,11 @@
 
 This is the framework's stand-in for the reference's ``ksw.c`` kernel
 (SURVEY.md section 3.4): a slow, obviously-correct, full-matrix affine
-Smith-Waterman with banding and state-aware traceback. Every accelerated
-implementation (the XLA batched kernel and the Pallas wavefront kernel)
-is property-tested for bit-identical scores and CIGARs against this
-module; the C++ scalar implementation in ``native/banded_sw.cpp`` serves
-as the measurable CPU baseline (BASELINE.md: reference binary
-unavailable, mount empty — SURVEY.md section 0).
+Smith-Waterman with banding and state-aware traceback. The batched XLA
+DP (with its host and device tracebacks) is property-tested for
+bit-identical scores and CIGARs against this module; the C++ scalar
+implementation in ``native/lamsa_native.cpp`` is the measurable CPU
+baseline (the reference binary is unavailable — SURVEY.md section 0).
 
 Conventions (shared, framework-wide):
   * query q = read segment (length m, "rows" i), target t = reference
@@ -39,9 +38,7 @@ NEG_INF = -(1 << 29)
 # ZDROP_GROUP-th DP row, an extension whose current row max has fallen
 # more than zdrop below its running best freezes — later rows update
 # neither the best cell nor the to-end row (so the clip decision falls
-# back to the best cell). Group granularity (= the Pallas kernel's
-# 32-row store group) keeps the device kernels free of per-row
-# cross-lane reductions; all engines implement this contract
+# back to the best cell). All engines implement this contract
 # bit-identically.
 ZDROP_GROUP = 32
 

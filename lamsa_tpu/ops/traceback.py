@@ -1,13 +1,13 @@
 """Host-side CIGAR traceback over banded direction arrays.
 
-The DP kernels (XLA / Pallas) emit per-cell direction bytes in band-lane
-coordinates (lane d of row i = cell (i, j) with j = i + lo + d; byte
-layout in ops/oracle.py). Scores vectorize on the TPU but traceback is
-inherently sequential, so it runs on the host — O(m + n) per gap, tiny
-compared to the O(m * W) DP (SURVEY.md section 7 "Hard parts" item 2).
-A native C++ implementation lives in native/lamsa_native.cpp
-(traceback_banded); this module is the NumPy fallback and the
-semantics spec.
+The XLA DP (ops/banded_sw_xla.py) emits per-cell direction bytes in
+band-lane coordinates (lane d of row i = cell (i, j) with j = i + lo +
+d; byte layout in ops/oracle.py). The CPU engine walks them on the host
+— O(m + n) per gap, tiny compared to the O(m * W) DP (SURVEY.md
+section 7 "Hard parts" item 2) — with the native C++ walk in
+native/lamsa_native.cpp (traceback_banded); this module is the NumPy
+fallback and the semantics spec, which the device walk
+(ops/traceback_device.py) also reproduces.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def traceback_banded(dirs: np.ndarray, lo: int, i: int, j: int):
 def decode_steps(steps_row: np.ndarray, term_row: np.ndarray,
                  start_i: int):
     """Decode one instance's on-device traceback output
-    (ops/traceback_pallas.py) into a forward CIGAR.
+    (ops/traceback_device.py) into a forward CIGAR.
 
     steps_row[r-1] for DP row r holds (d_count | op << 16); term_row[0]
     is the terminal j at row 0 (leading D run). Must produce the exact

@@ -1,11 +1,11 @@
 """Multi-chip data parallelism over reads.
 
 The reference's only parallelism is a pthread pool over reads
-(SURVEY.md section 2b); the TPU-native equivalent (BASELINE.json
-north star) is read-level data parallelism over a
-``jax.sharding.Mesh``: the read batch's leading dimension is sharded
-across chips, the index arrays are replicated (genome-scale k-mer
-tables fit HBM per chip; see parallel/multihost.py for host-level
+(SURVEY.md section 2b); the device equivalent (BASELINE.json north
+star) is read-level data parallelism over a ``jax.sharding.Mesh``: the
+read batch's leading dimension is sharded across devices, the index
+arrays are replicated (genome-scale k-mer tables fit each device's
+memory; see parallel/multihost.py for host-level
 sharding), and every device stage — seeding gathers, chain scan, banded
 DP — partitions trivially along the batch axis, so XLA inserts no
 collectives in the hot path at all. SAM assembly merges on hosts.
@@ -67,8 +67,8 @@ def seed_chain_step(read_codes, read_len, qpos_grid, idx_keys, idx_starts,
                                              "gape"))
 def banded_dp_step(q, t_win, m_len, n_len, lo, *, match, mismatch, gapo,
                    gape):
-    """Sharded banded-DP stage (XLA engine — backend-portable; the
-    Pallas engine runs per-shard identically on TPU backends)."""
+    """Sharded banded-DP stage (the XLA DP; its batch dim partitions
+    with no collectives)."""
     from lamsa_tpu.ops.banded_sw import extract_scores
     from lamsa_tpu.ops.banded_sw_xla import banded_sw_batch
 

@@ -1,16 +1,17 @@
 """Multi-host orchestration.
 
 Reference had none (single node, pthreads — SURVEY.md section 2b); the
-TPU-native design (BASELINE.json north star) is:
+design here (BASELINE.json north star) is:
 
   * ``jax.distributed.initialize()`` across hosts;
   * each host streams its own slice of the FASTQ (round-robin by batch
-    index) host-RAM -> HBM — read-level data parallelism, no cross-host
+    index) host RAM -> device — read-level data parallelism, no cross-host
     traffic in the align path;
   * the reference index is replicated per host (a whole-genome k-mer
-    index is a few GB — fits host RAM/HBM); for indexes beyond per-chip
-    HBM, parallel/sharded_index.py splits the key space across the
-    chips of each host and exchanges hit lists over ICI;
+    index is a few GB — fits host RAM and device memory); for indexes
+    beyond one device's memory, parallel/sharded_index.py splits the
+    key space across the devices of each host and exchanges hit lists
+    between them;
   * SAM records are merged in input order via host-side collectives
     (process_allgather on per-batch byte blobs) or, for file sinks,
     per-host shard files concatenated by rank.

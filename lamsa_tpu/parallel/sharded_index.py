@@ -1,16 +1,16 @@
 """Sharded-index seeding: k-mer table split across chips, hit exchange.
 
 The replicated-index mode (parallel/mesh.py) keeps a full index copy in
-every chip's HBM. For indexes that exceed per-chip HBM (GRCh38 position
+every device's memory. For indexes that exceed one device (GRCh38 position
 tables at low k, pan-genome references), SURVEY.md section 5
 ("Distributed communication backend" row) prescribes the alternative:
 shard the index across chips and all-gather hit lists. This module is
-that mode, TPU-native:
+that mode:
 
   * the sorted k-mer table is split into n_shards contiguous KEY RANGES
     (host-side, `shard_kmer_index`); each device holds one range's
     keys/starts/counts plus exactly its slice of the positions array —
-    per-chip HBM drops by ~n_shards;
+    per-device memory drops by ~n_shards;
   * seeding runs under `jax.shard_map` over the data mesh axis: reads
     are all-gathered so every chip probes the full batch against its
     local key range (a key lives on exactly one shard, so per-candidate

@@ -6,13 +6,14 @@ anchor blocks are aligned with banded affine-gap DP, the two part ends
 are extended with max-cell tracking for soft-clip decisions, and the
 per-segment CIGARs are stitched.
 
-TPU shape discipline (SURVEY.md section 5 "Long-context" row): every
+Shape discipline (SURVEY.md section 5 "Long-context" row): every
 gap/end instance from every read in the batch is thrown into one
 ``DpBatcher``, bucketed by padded query length into static (M, W)
-shapes, and executed as a handful of dense batched kernel calls —
+shapes, and executed as a handful of dense batched calls —
 length-bucketed batching keeps the DP lanes dense despite wildly
-variable gap sizes. Traceback is host-side over the returned direction
-bands (ops/traceback.py).
+variable gap sizes. On the GPU the traceback runs on the device and
+only a compact wire returns; on the CPU engine it runs on the host over
+the returned direction bands (ops/banded_sw.py).
 """
 
 from __future__ import annotations
@@ -31,15 +32,11 @@ from lamsa_tpu.ops.traceback import traceback_banded
 # (max query length, band width) buckets; instances pick the first
 # bucket that fits (both kinds, both widths — bands and therefore SAM
 # stay bit-identical across engines because the bucket choice is
-# engine-independent). On the Pallas backend, GLOBAL instances in any
-# adiag-eligible bucket (_adiag_bucket: both W=128 via the V=64 lane
-# tile and W=256 via V=128) are split into all-global chunks for the
-# antidiagonal engine; extensions always ride the row kernel, which
-# owns the zdrop/best-cell machinery. The last bucket (5120 = 40*128)
-# covers interior gaps up to config.chain_max_dist (5000): every
-# chained gap has |n - m| <= chain_diag_slack (100) so W=256 always
-# fits — without it such gaps fell to the fabricated-CIGAR fallback
-# (round-2 judge finding).
+# engine-independent). Globals and extensions of a bucket share its
+# chunks. The last bucket (5120 = 40*128) covers interior gaps up to
+# config.chain_max_dist (5000): every chained gap has |n - m| <=
+# chain_diag_slack (100) so W=256 always fits — without it such gaps
+# would fall to the fabricated-CIGAR fallback.
 BUCKETS = ((128, 128), (128, 256), (256, 128), (256, 256), (512, 128),
            (512, 256), (1024, 256), (2048, 256), (5120, 256))
 
@@ -65,11 +62,11 @@ def _bucket_fits(kind: str, m: int, n: int, M: int, W: int,
     return (n - m <= W // 2 - 8) and (W == 256 or m <= 256)
 
 
-# Fixed chunk size per bucket (Pallas path): every kernel call has ONE
-# static shape per bucket, so the whole pipeline compiles a closed set
-# of signatures (remote compiles cost ~a minute per signature here).
-# Padding is nearly free: all-padding instance tiles have max m = 0 and
-# the kernels skip every row group. Sizes bound dirs32 HBM to ~256 MB.
+# Fixed chunk size per bucket (device path): every chunk has ONE static
+# shape per bucket, so the whole pipeline compiles a closed set of
+# signatures, one per bucket. The sizes bound the direction bytes a
+# chunk holds on the device (B * M * W, one byte per DP cell) to
+# 64-160 MiB.
 CHUNK_BY_M = {(128, 128): 4096, (128, 256): 4096, (256, 128): 4096,
               (256, 256): 2048, (512, 128): 2048, (512, 256): 1024,
               (1024, 256): 512, (2048, 256): 256, (5120, 256): 128}
@@ -77,25 +74,6 @@ CHUNK_BY_M = {(128, 128): 4096, (128, 256): 4096, (256, 128): 4096,
 # Extra target bases given to end extensions beyond the query length;
 # must stay below min(W)//2 - 8 so the band reaches the last DP row.
 EXT_MARGIN = 48
-
-# Route global gap fills to the antidiagonal kernel
-# (ops/banded_sw_adiag.py — no prefix-max scan, ~4x the row kernel's
-# cells/s) at BOTH band widths: W=256 is its native V=128 one-vreg-row
-# tile; W=128 runs the V=64 tile (half a vreg row idle, still ~3x the
-# row kernel — enabled since commit 8ee4129 after the q/t slice width
-# was rounded to a 128 multiple). Tests flip this off to pin the row
-# engine.
-ADIAG_ENABLED = True
-
-
-def _adiag_bucket(M: int, W: int) -> bool:
-    # every bucket incl. (5120, 256): the wide-event walker's TPU
-    # compile is validated (30 s compile / 0.16 s steady at B=128,
-    # tools/tpu_validate_r4.py 2026-08-21) — and the ROW kernel cannot
-    # even compile that bucket on this toolchain without the G<=32
-    # clamp (scoped-vmem OOM), so huge globals must ride adiag
-    return ADIAG_ENABLED and W in (128, 256)
-
 
 _EMPTY_CIGAR = np.empty(0, np.uint32)
 
@@ -106,7 +84,7 @@ def _run(op: int, ln: int) -> np.ndarray:
 
 # ------------------------------------------------------ chunk scheduling
 #
-# Two production-scale mechanisms (round-4 judge items 4+5):
+# Two production-scale mechanisms:
 #
 # 1. Decode pool: each dispatched chunk's collect (D2H sync + native
 #    compact decode + rare host recompute) runs on a small shared
@@ -115,26 +93,25 @@ def _run(op: int, ln: int) -> np.ndarray:
 #    work and other chunks' transfers (the native decoder and numpy
 #    drop the GIL; native buffers are thread-local).
 #
-# 2. In-flight HBM budget: each launched chunk holds workspace on
-#    device (dirs arrays etc., ~ B*M*W bytes) from dispatch until its
-#    collect drains it. At whole-genome scale the resident index/ref
-#    plus 3 pipelined batches x all their chunks exceeded HBM and
-#    cratered throughput (batch 256 at config 4: 317 -> 58 reads/s,
-#    BASELINE.md round 4); instead of a scale-dependent batch-size
-#    constant, dispatch now blocks while estimated in-flight workspace
-#    would exceed the budget the Aligner computes from device memory
-#    minus resident bytes. Deadlock-free: waiters are dispatchers,
-#    releasers are collectors of already-dispatched chunks (collects
-#    never wait on the budget), and the first chunk is always admitted.
+# 2. In-flight device-memory budget: each launched chunk holds
+#    workspace on device (dirs arrays etc., ~ B*M*W bytes) from
+#    dispatch until its collect drains it. At whole-genome scale the
+#    resident index/ref plus several pipelined batches x all their
+#    chunks can exceed device memory; instead of a scale-dependent
+#    batch-size constant, dispatch blocks while estimated in-flight
+#    workspace would exceed the budget the Aligner computes from
+#    device memory minus resident bytes. Deadlock-free: waiters are
+#    dispatchers, releasers are collectors of already-dispatched chunks
+#    (collects never wait on the budget), and the first chunk is always
+#    admitted.
 
 _COLLECT_WORKERS = 4
 
 
 def _chunk_inflight_bytes(M: int, W: int) -> int:
     """Estimated per-chunk device workspace held between dispatch and
-    collect: the direction storage dominates (~1 byte/cell at both
-    engines' layouts; measured 172 MB for the (5120, 256) B=128 chunk,
-    BASELINE.md), plus window/state intermediates."""
+    collect: the direction storage dominates (1 byte/cell), plus
+    window/state intermediates."""
     B = CHUNK_BY_M[(M, W)]
     return B * M * W + (32 << 20)
 
@@ -181,14 +158,15 @@ class DpResult:
 
 class DpBatcher:
     """Collect global/extend DP instances, run them bucketed, hand back
-    per-instance results by handle. Engine (XLA+host-traceback on CPU,
-    Pallas+device-traceback on TPU) is picked by ops/banded_sw.py;
-    pass `kernel` only to force a specific XLA-contract kernel (tests).
+    per-instance results by handle. The engine (XLA DP + host traceback
+    on the CPU, the fused device chain on the GPU) is picked by
+    lamsa_tpu/device.py; pass `kernel` only to force a specific
+    XLA-contract kernel (tests).
 
     device_sources — (flat_read_codes_dev, ref_codes_dev) device arrays
-    — switches the Pallas engine to device-side window assembly: the
+    — switches the device engine to device-side window assembly: the
     enqueue calls then also carry (qd, td) descriptors (see
-    ops/banded_sw.py::_dp_tb_fused_gather) and each chunk uploads ~8
+    ops/banded_sw.py::_dp_tb_fused_gather) and each chunk uploads 4
     int32 per instance instead of M + (M+W) codes."""
 
     def __init__(self, scores, kernel=None, device_sources=None,
@@ -389,7 +367,7 @@ class DpBatcher:
                 for k in self._COLS}
 
     def _launch(self, dispatch, M, W, futs):
-        """Dispatch one chunk under the in-flight HBM budget and hand
+        """Dispatch one chunk under the in-flight memory budget and hand
         its collect to the decode pool (chunk-scheduling note above)."""
         est = _chunk_inflight_bytes(M, W)
         if self.mesh is not None:
@@ -408,19 +386,20 @@ class DpBatcher:
 
     def _collect_one(self, lch, rel_bytes):
         try:
-            insts, M, W, dev, topdown = lch
+            insts, M, W, dev = lch
             try:
                 dev.copy_to_host_async()
             except AttributeError:
                 pass
-            self._collect_pallas(insts, M, W, dev, topdown)
+            self._collect_device(insts, M, W, dev)
         finally:
             if rel_bytes:
                 _LIMITER.release(rel_bytes)
 
     def run(self) -> None:
-        from lamsa_tpu.ops.banded_sw import backend_kind
-        pallas = self.kernel is None and backend_kind() == "pallas"
+        from lamsa_tpu.device import use_device_path
+        on_dev = self.kernel is None and use_device_path()
+        use_gather = on_dev and self.device_sources is not None
         futs = []
 
         # ---- columnar (descriptor) instances: vectorized bucketing
@@ -452,32 +431,15 @@ class DpBatcher:
                 if len(sel) == 0:
                     continue
                 sel = sel[np.argsort(-m[sel], kind="stable")]
-                use_dev = pallas and self.device_sources is not None
-                # antidiagonal engine takes the global instances of
-                # W=256 buckets as separate all-global chunks (it has
-                # no zdrop/best machinery); extends stay on the row
-                # kernel. W=256 buckets are nearly all-global in
-                # production (short extends fit the W=128 buckets).
-                if use_dev and _adiag_bucket(M, W):
-                    gsel = glob[sel].astype(bool)   # int64 0/1 via the
-                    parts = [(sel[gsel], True),     # scalar-add merge
-                             (sel[~gsel], False)]
-                else:
-                    parts = [(sel, False)]
                 chunk = CHUNK_BY_M[(M, W)]
-                for psel, adiag in parts:
-                    for c0 in range(0, len(psel), chunk):
-                        sl = {k: v[psel[c0:c0 + chunk]]
-                              for k, v in c.items()}
-                        if len(sl["m"]) == 0:
-                            continue
-                        if use_dev:
-                            self._launch(
-                                lambda sl=sl, adiag=adiag:
-                                self._dispatch_cols(sl, M, W, adiag),
-                                M, W, futs)
-                        else:
-                            self._run_cols_host(sl, M, W)
+                for c0 in range(0, len(sel), chunk):
+                    sl = {k: v[sel[c0:c0 + chunk]] for k, v in c.items()}
+                    if use_gather:
+                        self._launch(
+                            lambda sl=sl: self._dispatch_cols(sl, M, W),
+                            M, W, futs)
+                    else:
+                        self._run_cols_host(sl, M, W)
 
         # ---- explicit (content) instances: per-instance path
         groups: dict[tuple, list] = {}
@@ -500,36 +462,26 @@ class DpBatcher:
                 continue
             groups.setdefault(key, []).append(inst)
         self._inst = []
-        # Sorting by query length lets the kernels skip row groups above
-        # each instance tile's longest query. On the Pallas path ALL
+        # Instances run sorted by query length. On the device path ALL
         # chunks are dispatched asynchronously before any is collected,
         # overlapping device work with host<->device round trips.
         for (M, W), insts in sorted(groups.items()):
             insts.sort(key=lambda it: -len(it["q"]))
-            if pallas and _adiag_bucket(M, W):
-                parts = [([i for i in insts if i["kind"] == "global"],
-                          True),
-                         ([i for i in insts if i["kind"] != "global"],
-                          False)]
-            else:
-                parts = [(insts, False)]
             chunk = CHUNK_BY_M[(M, W)]
-            for pinsts, adiag in parts:
-                for c0 in range(0, len(pinsts), chunk):
-                    part = pinsts[c0:c0 + chunk]
-                    if pallas:
-                        self._launch(
-                            lambda part=part, adiag=adiag:
-                            self._dispatch_pallas(part, M, W, adiag),
-                            M, W, futs)
-                    else:
-                        self._run_group_host(part, M, W)
+            for c0 in range(0, len(insts), chunk):
+                part = insts[c0:c0 + chunk]
+                if on_dev:
+                    self._launch(
+                        lambda part=part: self._dispatch_device(part, M, W),
+                        M, W, futs)
+                else:
+                    self._run_group_host(part, M, W)
         for f in futs:          # all collects ran on the decode pool;
             f.result()          # propagate any worker exception
 
     def _build_arrays(self, insts, M, W, Bp):
-        # uint8 halves nothing on device (kernels cast to int32 there)
-        # but quarters the host->device upload, the scarce link
+        # uint8 codes (cast to int32 on the device): a quarter of the
+        # host->device bytes
         q = np.zeros((Bp, M), np.uint8)
         t_win = np.zeros((Bp, M + W), np.uint8)
         m_len = np.zeros(Bp, np.int32)
@@ -554,13 +506,11 @@ class DpBatcher:
             t_win[b] = make_t_window(tt, int(lo[b]), M, W)
         return q, t_win, m_len, n_len, lo, is_global, bonus
 
-    # ------------------------------------------------------- pallas engine
+    # ------------------------------------------------------- device engine
 
-    def _dispatch_pallas(self, insts, M, W, adiag=False):
-        from lamsa_tpu.ops.banded_sw import (dispatch_group_adiag,
-                                             dispatch_group_adiag_gather,
-                                             dispatch_group_pallas,
-                                             dispatch_group_pallas_gather)
+    def _dispatch_device(self, insts, M, W):
+        from lamsa_tpu.ops.banded_sw import (dispatch_group,
+                                             dispatch_group_gather)
         from lamsa_tpu.utils.timers import GLOBAL as STATS
         Bp = CHUNK_BY_M[(M, W)]   # one static shape per bucket
         gather = (self.device_sources is not None
@@ -578,28 +528,14 @@ class DpBatcher:
                 if self.mesh is not None:
                     (desc,) = self._shard(desc)
                 flat_dev, ref_dev = self.device_sources
-                if adiag:
-                    dev = dispatch_group_adiag_gather(
-                        desc, flat_dev, ref_dev, self.scores, M, W,
-                        mesh=self.mesh)
-                else:
-                    dev = dispatch_group_pallas_gather(
-                        desc, flat_dev, ref_dev, self.scores, M, W,
-                        mesh=self.mesh)
+                dev = dispatch_group_gather(desc, flat_dev, ref_dev,
+                                            self.scores, M, W,
+                                            mesh=self.mesh)
             else:
                 arrays = self._shard(*arrays) if self.mesh is not None \
                     else arrays
-                q, t_win, m_len, n_len, lo, is_global, bonus = arrays
-                if adiag:
-                    dev = dispatch_group_adiag(q, t_win, m_len, n_len,
-                                               lo, self.scores, M,
-                                               mesh=self.mesh)
-                else:
-                    dev = dispatch_group_pallas(q, t_win, m_len, n_len,
-                                                lo, is_global, bonus,
-                                                self.scores,
-                                                mesh=self.mesh)
-        return insts, M, W, dev, adiag
+                dev = dispatch_group(*arrays, self.scores, mesh=self.mesh)
+        return insts, M, W, dev
 
     def _build_desc(self, insts, M, W, Bp):
         """Packed (Bp, 4) descriptor array for the device-gather
@@ -637,12 +573,10 @@ class DpBatcher:
         return np.where(sl["glob"], global_lo(sl["m"], sl["n"], W),
                         -(W // 2)).astype(np.int64)
 
-    def _dispatch_cols(self, sl, M, W, adiag=False):
-        """Columnar twin of _dispatch_pallas: descriptor slices pack
+    def _dispatch_cols(self, sl, M, W):
+        """Columnar twin of _dispatch_device: descriptor slices pack
         straight into the (Bp, 4) wire array (no per-instance dicts)."""
-        from lamsa_tpu.ops.banded_sw import (_LO_BIAS,
-                                             dispatch_group_adiag_gather,
-                                             dispatch_group_pallas_gather,
+        from lamsa_tpu.ops.banded_sw import (_LO_BIAS, dispatch_group_gather,
                                              pack_desc)
         from lamsa_tpu.utils.timers import GLOBAL as STATS
         Bp = CHUNK_BY_M[(M, W)]
@@ -661,11 +595,9 @@ class DpBatcher:
             if self.mesh is not None:
                 (desc,) = self._shard(desc)
             flat_dev, ref_dev = self.device_sources
-            fn = dispatch_group_adiag_gather if adiag \
-                else dispatch_group_pallas_gather
-            dev = fn(desc, flat_dev, ref_dev, self.scores, M, W,
-                     mesh=self.mesh)
-        return sl, M, W, dev, adiag
+            dev = dispatch_group_gather(desc, flat_dev, ref_dev, self.scores,
+                                        M, W, mesh=self.mesh)
+        return sl, M, W, dev
 
     def _run_cols_host(self, sl, M, W):
         """Columnar instances on the host (XLA) engine: materialize
@@ -680,12 +612,12 @@ class DpBatcher:
                           "qd": None, "td": None})
         self._run_group_host(insts, M, W)
 
-    def _collect_pallas(self, insts, M, W, dev, topdown=False):
+    def _collect_device(self, insts, M, W, dev):
         from lamsa_tpu import native
-        from lamsa_tpu.ops.banded_sw import collect_group_pallas
+        from lamsa_tpu.ops.banded_sw import collect_group
         from lamsa_tpu.utils.timers import GLOBAL as STATS
         with STATS.stage(f"dp_collect_{M}x{W}"):
-            cigars, score, si, sd = collect_group_pallas(dev, M, topdown)
+            cigars, score, si, sd = collect_group(dev, M)
         if isinstance(insts, dict):            # columnar launch
             sl = insts
             K = len(sl["idx"])
@@ -729,7 +661,7 @@ class DpBatcher:
     # --------------------------------------------------- host (XLA) engine
 
     def _run_group_host(self, insts, M, W):
-        from lamsa_tpu.ops.banded_sw import backend_kind, run_group_xla
+        from lamsa_tpu.ops.banded_sw import run_group_xla
         B = len(insts)
         Bp = max(8, 1 << (B - 1).bit_length())
         if self.mesh is not None:

@@ -1,6 +1,6 @@
 """On-device seeding: batched k-mer extraction, index lookup, hit packing.
 
-TPU-native replacement for the reference's seed-FASTQ -> fork/exec
+On-device replacement for the reference's seed-FASTQ -> fork/exec
 gem-mapper -> parse ``.map`` pipeline stage (SURVEY.md sections 3.2/2b
 "Seeding glue"): instead of a subprocess boundary, seeding is one jitted
 function of (read batch, index arrays) -> per-read hit arrays, all
@@ -15,7 +15,7 @@ exactly the orientation SAM reverse-strand records use.
 Hit packing: hits are sorted per read by (strand, qpos, rpos) with a
 two-key lexicographic ``lax.sort`` — the order the chain kernel
 (ops/chain.py) requires — and truncated to a static max_hits_per_read.
-All device integers are 32-bit (TPUs have no native int64); reference
+All device integers are 32-bit (JAX runs without x64); reference
 positions are uint32 bit-patterns carried in int32 arrays, so genomes up
 to 4 Gb (GRCh38 = 3.1 Gb) are addressable. Hosts must reinterpret with
 ``.view(np.uint32)`` before widening.
@@ -103,7 +103,7 @@ def table_lookup(keys, idx_keys, idx_starts, idx_counts, idx_positions, C,
 def pack_positions16(positions):
     """Host-side: reshape the flat position table into 16-wide records
     for table_lookup_direct's record gather (padded; pipeline/aln.py
-    uploads this for the TPU direct-address path)."""
+    uploads this for the device path's direct-address lookup)."""
     import numpy as np
     p = np.asarray(positions)
     pad = (-len(p)) % 16
@@ -115,14 +115,12 @@ def table_lookup_direct(keys, dense_starts, dense_counts, pos16, C,
                         rot=None):
     """Direct-address variant of table_lookup: dense 4^k tables replace
     the binary search with a single gather (k <= 13 keeps the tables at
-    2 x 256 MB; pipeline/aln.py builds them for the TPU engine).
+    2 x 256 MB; pipeline/aln.py builds them on the device path).
 
     The C candidate positions of a key are CONTIGUOUS in the position
     table, so they are fetched as TWO 16-wide row records (pos16 =
     pack_positions16 layout) and realigned with a 4-stage log-shift —
-    2 gather descriptors per window instead of C elementwise gathers
-    (gathers are descriptor-bound on this TPU; this halved the whole
-    fused seeding stage at the 10 kb point, BASELINE.md round-4).
+    2 gathers per window instead of C elementwise gathers.
     Requires C <= 16 (start & 15 + C <= 32). rot shifts the sampling
     window for >C-occurrence keys (candidate_rotation) — the records
     stay contiguous, so the gather cost is unchanged."""

@@ -319,3 +319,121 @@ def _simulate_sv_read(rng, genome, L):
     parts = [TruthPart(g.name, s, s + half, "+", 0, half),
              TruthPart(g2.name, s2, s2 + len(b), "+", half, half + len(b))]
     return a + b, parts
+
+
+# ------------------------------------------------- DP engine instances
+
+def _edit(rng, t, sub, ins, dele):
+    """Copy of code array t with per-base substitution, deletion and
+    insertion (one random base after the position) rates."""
+    r = rng.random(len(t))
+    out = np.where(r < sub, (t + rng.integers(1, 4, len(t))) % 4, t)
+    keep = (r < sub) | (r >= sub + dele)
+    ins_at = np.flatnonzero(rng.random(len(t)) < ins)
+    vals = np.concatenate([out[keep], rng.integers(0, 4, len(ins_at))])
+    keys = np.concatenate([2 * np.flatnonzero(keep), 2 * ins_at + 1])
+    return vals[np.argsort(keys, kind="stable")].astype(np.uint8)
+
+
+def _indel_ladder(rng, t, period=8):
+    """t with, in every period-base block, its first base deleted and
+    one random base inserted mid-block: one deletion per block that the
+    aligner cannot merge with the insertion into mismatches."""
+    out, h = [], period // 2
+    for k in range(0, len(t), period):
+        blk = t[k:k + period]
+        out += [blk[1:h], rng.integers(0, 4, 1).astype(np.uint8), blk[h:]]
+    return np.concatenate(out).astype(np.uint8)
+
+
+def dp_instances(rng: np.random.Generator, M: int, W: int, count: int):
+    """`count` DP instances whose first-fit bucket (pipeline/extend.py
+    BUCKETS) is (M, W), as descriptors over a flat read array and a
+    reference array — the form the aligner hands its DpBatcher.
+
+    Globals are mutated copies of a reference segment; some carry one
+    long deletion or insertion (the drift that sends a gap to a W=256
+    bucket, and D runs too long for the compact wire's narrow events),
+    and in the widest bucket some carry a deletion every 8 bases (more
+    D events than the wire holds). Extensions (where one fits first in
+    this bucket) follow the aligner's n <= m + EXT_MARGIN rule, some
+    with a random tail. Queries are stored forward or reverse-
+    complemented and targets forward or reversed, covering every
+    descriptor case.
+
+    Returns {"flat", "ref": uint8 codes, "items": [(kind, m, n, qd, td)]}
+    with qd = (q_base, q_step, q_comp) and td = (t_base, t_step)."""
+    from lamsa_tpu.pipeline.aln import _EXT_CAP
+    from lamsa_tpu.pipeline.extend import BUCKETS, EXT_MARGIN, _bucket_fits
+
+    def first_fit(kind, m, n):
+        return next((b for b in BUCKETS if _bucket_fits(kind, m, n, *b)),
+                    None)
+
+    m_lo = max([b[0] for b in BUCKETS if b[0] < M], default=0) + 1
+    m_ext = min(M, _EXT_CAP)
+    can_extend = m_lo <= m_ext and any(
+        first_fit("extend", m, m + d) == (M, W)
+        for m in (m_lo, m_ext) for d in (0, EXT_MARGIN))
+    # a drift-free global of this length fits an earlier W=128 bucket:
+    # every global here carries one long indel
+    drift_only = first_fit("global", M, M) != (M, W)
+    ref_len = max(1 << 16, 4 * count * (M + 256))
+    ref = rng.integers(0, 4, ref_len).astype(np.uint8)
+    flat, items, pos = [], [], 0
+    while len(items) < count:
+        kind = "extend" if can_extend and rng.random() < 0.4 else "global"
+        style = rng.random()
+        ladder = kind == "global" and M > 2048 and style < 0.2
+        m0 = int(rng.integers(max(m_lo, 3 * M // 4) if ladder else m_lo,
+                              (m_ext if kind == "extend" else M) + 1))
+        n = m0 + (int(rng.integers(0, EXT_MARGIN + 1)) if kind == "extend"
+                  else 0)
+        t0 = int(rng.integers(0, ref_len - n - 256))
+        t_rev = rng.random() < 0.5
+        t = ref[t0:t0 + n][::-1] if t_rev else ref[t0:t0 + n]
+        if kind == "extend":
+            q = _edit(rng, t[:m0], 0.03, 0.02, 0.02)
+            if rng.random() < 0.3:          # diverged tail: clip/zdrop
+                cut = int(rng.integers(len(q) // 2, len(q) + 1))
+                q[cut:] = rng.integers(0, 4, len(q) - cut)
+        else:
+            if ladder:                      # D events past the budget
+                q = _indel_ladder(rng, t)
+            else:
+                q = _edit(rng, t, 0.03, 0.02, 0.02)
+                if drift_only or style > 0.7:   # one long indel
+                    ln = int(rng.integers(81 if drift_only else 31, 190))
+                    at = int(rng.integers(0, max(1, len(q) - ln)))
+                    if rng.random() < 0.6:
+                        q = np.concatenate([q[:at], q[at + ln:]])
+                    else:
+                        q = np.concatenate(
+                            [q[:at], rng.integers(0, 4, ln).astype(np.uint8),
+                             q[at:]])
+        m = len(q)
+        if m == 0 or first_fit(kind, m, n) != (M, W):
+            continue
+        q_rc = rng.random() < 0.5
+        if q_rc:
+            flat.append(np.where(q < 4, 3 - q, q)[::-1])
+            qd = (pos + m - 1, -1, 1)
+        else:
+            flat.append(q)
+            qd = (pos, 1, 0)
+        pos += m
+        td = (t0 + n - 1, -1) if t_rev else (t0, 1)
+        items.append((kind, m, n, qd, td))
+    return {"flat": np.concatenate(flat).astype(np.uint8), "ref": ref,
+            "items": items}
+
+
+def enqueue_dp_instances(batcher, inst, bonus: int = 5) -> list[int]:
+    """Add dp_instances() items to a DpBatcher; returns their handles."""
+    handles = []
+    for kind, m, n, qd, td in inst["items"]:
+        if kind == "global":
+            handles.append(batcher.add_global_desc(m, n, qd, td))
+        else:
+            handles.append(batcher.add_extend_desc(m, n, bonus, qd, td))
+    return handles

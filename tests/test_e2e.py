@@ -317,7 +317,7 @@ def test_degraded_ont_error_recall():
     harsh-CLR test stopped at 17% total). sub=0.10 / total 20% must
     hold part recall >= 0.95 with exact-13-mer step-10 seeding — the
     measured cliff is ~25% total (part_recall 0.91 at 25%, 0.78 at
-    28%; BASELINE.md robustness note)."""
+    28%, CPU engine)."""
     from lamsa_tpu.config import preset
 
     rng = np.random.default_rng(99)
@@ -434,7 +434,7 @@ def test_fm_1edit_envelope_at_28pct_error():
 
     # The retry must produce identical SAM when its element budget
     # forces the minimum sub-batch (chunked looping): at config-4
-    # scale an uncapped retry sub-batch OOM-crashed the TPU worker
+    # scale an uncapped retry sub-batch builds ~2 GB of sort operands
     # (round 5), so the cap is load-bearing and must be lossless.
     from lamsa_tpu.io.sam import format_sam_record
     from lamsa_tpu.pipeline import aln as aln_mod

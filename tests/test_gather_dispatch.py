@@ -160,8 +160,8 @@ def test_gather_rc_matches_host_assembly(rng):
 
 def test_batcher_desc_matches_content(rng):
     """Descriptor-only (columnar bulk) enqueue must produce DpResults
-    identical to the explicit-content enqueue on the XLA engine (the
-    Pallas engine shares the gather math via gather_windows, tested
+    identical to the explicit-content enqueue on the CPU engine (the
+    device path shares the gather math via gather_windows, tested
     above)."""
     from lamsa_tpu.config import ScoreParams
     from lamsa_tpu.pipeline.extend import DpBatcher

@@ -1,4 +1,4 @@
-"""MAPQ calibration (VERDICT round-1 item 7): on a repeat-rich genome
+"""MAPQ calibration: on a repeat-rich genome
 (exact + 2%-diverged duplicated blocks), records with MAPQ >= 30 must
 be >= 99.9% correct, and ambiguous (repeat) mappings must land at low
 MAPQ rather than as confident supplementary records."""

@@ -69,22 +69,39 @@ def test_native_banded_sw_matches_oracle(rng):
         assert cpairs(got[1]) == cpairs(want_c)
 
 
-def test_native_decode_steps_matches_python(rng):
-    from lamsa_tpu.ops.traceback_pallas import traceback_pallas
-    from tests.test_banded_sw_pallas import make_batch
-    from tests.test_traceback_pallas import pack_dirs
+def _walked(rng, B=16, M=128, W=128):
+    """Step words + terminals of the device walk (ops/traceback_device)
+    over a batch of mutated global instances."""
+    from lamsa_tpu.ops.banded_sw_xla import make_t_window, prepare_band
+    from lamsa_tpu.ops.traceback_device import traceback_walk
 
-    B, M, W = 16, 128, 128
-    q, t_win, m_len, n_len, lo = make_batch(rng, B, M, W)
+    q = np.zeros((B, M), np.int32)
+    t_win = np.zeros((B, M + W), np.int32)
+    m_len = np.zeros(B, np.int32)
+    n_len = np.zeros(B, np.int32)
+    lo = np.zeros(B, np.int32)
+    for b in range(B):
+        t = rng.integers(0, 4, int(rng.integers(8, M - 2))).astype(np.uint8)
+        qq = mutate(rng, t, max(2, len(t) // 8))[:M]
+        if len(qq) == 0 or abs(len(t) - len(qq)) + 1 > W - 8:
+            qq = t.copy()
+        m_len[b], n_len[b] = len(qq), len(t)
+        lo[b] = prepare_band(len(qq), len(t), W)
+        q[b, :len(qq)] = qq
+        t_win[b] = make_t_window(t, int(lo[b]), M, W)
     res = banded_sw_batch(q, t_win, m_len, n_len, lo, match=S.match,
                           mismatch=S.mismatch, gapo=S.gap_open,
                           gape=S.gap_ext)
-    dirs32 = pack_dirs(np.asarray(res["dirs"]))
+    dirs = np.transpose(np.asarray(res["dirs"]), (1, 0, 2))
     si = m_len.copy()
     sd = n_len - m_len - lo
-    steps, term = traceback_pallas(dirs32, m_len, n_len, lo, si, sd,
-                                   interpret=True)
-    steps, term = np.asarray(steps), np.asarray(term)
+    steps, term = traceback_walk(dirs, lo, si, sd)
+    return np.asarray(steps), np.asarray(term), si
+
+
+def test_native_decode_steps_matches_python(rng):
+    B = 16
+    steps, term, si = _walked(rng, B)
     got = native.decode_steps_batch(steps, term, si)
     for b in range(B):
         want = decode_steps(steps[b], term[b], int(si[b]))
@@ -105,22 +122,10 @@ def test_native_nm(rng):
 
 def test_native_decode_steps16_matches_python(rng):
     from lamsa_tpu.ops.traceback import decode_steps16
-    from lamsa_tpu.ops.traceback_pallas import traceback_pallas
-    from tests.test_banded_sw_pallas import make_batch
-    from tests.test_traceback_pallas import pack_dirs
 
-    B, M, W = 16, 128, 128
-    q, t_win, m_len, n_len, lo = make_batch(rng, B, M, W)
-    res = banded_sw_batch(q, t_win, m_len, n_len, lo, match=S.match,
-                          mismatch=S.mismatch, gapo=S.gap_open,
-                          gape=S.gap_ext)
-    dirs32 = pack_dirs(np.asarray(res["dirs"]))
-    si = m_len.copy()
-    sd = n_len - m_len - lo
-    steps, term = traceback_pallas(dirs32, m_len, n_len, lo, si, sd,
-                                   interpret=True)
-    steps, term = np.asarray(steps), np.asarray(term)
-    # pack to the 16-bit stream exactly as _dp_tb_fused does
+    B = 16
+    steps, term, si = _walked(rng, B)
+    # pack to the 16-bit stream: two rows per int32, (count:14 | op:2)
     count = steps & 0xFFFF
     op = steps >> 16
     s16 = (count & 0x3FFF) | (op << 14)

@@ -4,8 +4,7 @@ import numpy as np
 import jax
 
 from __graft_entry__ import _tiny_problem, dryrun_multichip, entry
-from lamsa_tpu.parallel.mesh import (DATA_AXIS, full_align_step, make_mesh,
-                                     shard_batch)
+from lamsa_tpu.parallel.mesh import full_align_step, make_mesh, shard_batch
 
 
 def test_mesh_has_8_devices():
@@ -84,62 +83,27 @@ def test_production_aligner_mesh_byte_identical():
     assert len(single) >= 24
 
 
-def test_pallas_kernel_under_shard_map():
-    """The Pallas DP kernel (interpret mode) under jax.shard_map over
-    the 8-device mesh == unsharded run — validates the structure the
-    TPU engine uses for multi-chip dispatch
-    (ops/banded_sw._sharded_upload_fn)."""
-    from jax.sharding import PartitionSpec as P
+def test_device_chain_under_shard_map():
+    """The fused device chain (descriptor gather -> XLA DP -> traceback
+    walk -> compact wire) under jax.shard_map over the 8-device mesh ==
+    the single-device chain, wire word for wire word — the structure
+    Aligner(mesh=...) dispatches (ops/banded_sw._sharded_gather_fn)."""
+    import bench
+    from lamsa_tpu.ops.banded_sw import _dp_tb_fused_gather, \
+        _sharded_gather_fn
 
-    from lamsa_tpu.config import ScoreParams
-    from lamsa_tpu.ops.banded_sw_pallas import banded_sw_pallas
-    from lamsa_tpu.ops.banded_sw_xla import make_t_window, prepare_band
-
-    rng = np.random.default_rng(23)
-    S = ScoreParams()
-    # per-shard batch must stay a multiple of the minimum instance
-    # tile (8); production chunk sizes (extend.CHUNK_BY_M >= 256) keep
-    # per-shard batches >= 32 on an 8-chip mesh
-    B, M, W = 64, 128, 128
-    q = np.zeros((B, M), np.int32)
-    t_win = np.zeros((B, M + W), np.int32)
-    m_len = np.zeros(B, np.int32)
-    n_len = np.zeros(B, np.int32)
-    lo = np.zeros(B, np.int32)
-    for b in range(B):
-        n = int(rng.integers(30, 100))
-        t = rng.integers(0, 4, n).astype(np.uint8)
-        m_len[b] = n_len[b] = n
-        lo[b] = prepare_band(n, n, W)
-        q[b, :n] = t
-        t_win[b] = make_t_window(t, int(lo[b]), M, W)
-    zd = np.zeros(B, np.int32)
+    S = bench.scores()
+    M, W = 128, 128
+    flat, refd, desc, _ = bench.chain_case(M, W, seed=3, B=64)
     kw = dict(match=S.match, mismatch=S.mismatch, gapo=S.gap_open,
-              gape=S.gap_ext, interpret=True)
-    ref_out = banded_sw_pallas(q, t_win, m_len, n_len, lo, zd, **kw)
-
+              gape=S.gap_ext, zdrop=S.zdrop)
+    one = _dp_tb_fused_gather(flat, refd, desc, M=M, W=W, **kw)
     mesh = make_mesh(jax.devices())
-    sp = P(DATA_AXIS)
-
-    def body(*args):
-        return banded_sw_pallas(*args, **kw)
-
-    got = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(sp,) * 6,
-                                out_specs=sp, check_vma=False))(q, t_win, m_len, n_len,
-                                               lo, zd)
-    np.testing.assert_array_equal(np.asarray(got["h_last"]),
-                                  np.asarray(ref_out["h_last"]))
-    np.testing.assert_array_equal(np.asarray(got["best"]),
-                                  np.asarray(ref_out["best"]))
-    # dirs beyond an instance's own rows are skipped-group garbage and
-    # legitimately differ (per-shard max_m < global max_m); traceback
-    # only ever reads rows < m_len
-    from lamsa_tpu.ops.banded_sw_pallas import unpack_dirs
-    d_got = unpack_dirs(np.asarray(got["dirs32"]))
-    d_ref = unpack_dirs(np.asarray(ref_out["dirs32"]))
-    for b in range(B):
-        np.testing.assert_array_equal(d_got[b, :m_len[b]],
-                                      d_ref[b, :m_len[b]])
+    fn = _sharded_gather_fn(mesh, M, W, *kw.values())
+    (desc_sh,) = shard_batch(mesh, np.asarray(desc))
+    got = fn(flat, refd, desc_sh)
+    assert len(got.sharding.device_set) == 8
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(one))
 
 
 def test_production_aligner_mesh_fm_backend_byte_identical():
@@ -179,10 +143,9 @@ def test_production_aligner_mesh_fm_backend_byte_identical():
 def test_mesh_length_skew_byte_identical():
     """Pathological length skew (one 8 kb read among 500-700 bp reads)
     across the 8-device mesh: batch sharding is read-round-robin, so
-    the chip holding the long read does ~10x the DP cells of its peers
-    — output must stay byte-identical to single-device regardless
-    (imbalance is a throughput concern, measured in BASELINE.md
-    multi-chip section, never a correctness one)."""
+    the device holding the long read does ~10x the DP cells of its
+    peers — output must stay byte-identical to single-device regardless
+    (imbalance is a throughput concern, never a correctness one)."""
     from lamsa_tpu import sim
     from lamsa_tpu.config import AlignConfig, ScoreParams
     from lamsa_tpu.index.kmer import KmerIndex

@@ -135,7 +135,7 @@ def test_seed_hits_with_errors_still_vote(rng):
 
 def test_seed_hits_direct_matches_search(rng):
     """Direct-address (dense 4^k) lookup must reproduce the binary
-    search path bit-for-bit (the TPU engine uses it for k <= 13)."""
+    search path bit-for-bit (the device path uses it for k <= 13)."""
     from lamsa_tpu.pipeline.seeding import (pack_positions16,
                                             seed_hits_direct)
     k = 9

@@ -1,9 +1,9 @@
 """Repeat-family validation world: recall + MAPQ calibration.
 
-All other recall/accuracy numbers in BASELINE.md come from IID random
-genomes; real genomes are ~50% repeats, and tandem arrays / dispersed
-families / segmental duplications are exactly what stresses chain
-selection, MAPQ, and the hit-budget logic (round-4 judge Missing #4).
+The other recall/accuracy worlds are IID random genomes; real genomes
+are ~50% repeats, and tandem arrays / dispersed families / segmental
+duplications are exactly what stresses chain selection, MAPQ, and the
+hit-budget logic.
 This tool builds sim.repeat_genome (~50% repetitive), simulates CLR
 reads over it, and reports:
   * part recall / read accuracy (eval.evaluate, truth at the SAMPLED
